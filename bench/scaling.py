@@ -41,10 +41,6 @@ def main():
     from libhuffman_tpu.parallel.shard import block_mesh, encode_sharded
 
     mb = int(os.environ.get("BENCH_SCALING_MB", "4"))
-    # A blocksize off the Pallas-kernel alignment (N % 1024 != 0) routes
-    # the XLA fallback pipeline: on the CPU backend the Pallas kernels run
-    # in interpret mode, which would measure interpreter overhead instead
-    # of the partitioning overhead this harness is about.
     bs = 65024
     data = np.frombuffer(bench_mod.corpus(mb << 20), np.uint8)
     nblk = len(data) // bs

@@ -1,4 +1,4 @@
-"""Drop-in replacement for the ``huffmanfile`` package, TPU-backed.
+"""Drop-in replacement for the ``huffmanfile`` package, GPU-backed.
 
 Same public surface and wire format as the reference binding
 (reference: huffmanfile/__init__.py), implemented by libhuffman_tpu.

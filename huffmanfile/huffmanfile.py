@@ -2,7 +2,7 @@
 decompressing data using the Huffman compression algorithm.
 
 The interface provided by this module is very similar to that of the
-:mod:`bz2` module.  Backed by the TPU-native codec in :mod:`libhuffman_tpu`;
+:mod:`bz2` module.  Backed by the JAX codec in :mod:`libhuffman_tpu`;
 see libhuffman_tpu.api for the implementation and the reference-parity notes.
 """
 

@@ -1,18 +1,17 @@
-"""libhuffman_tpu — a TPU-native Huffman codec, wire-compatible with libhuffman.
+"""A Huffman codec on NVIDIA GPUs in JAX, wire-compatible with libhuffman.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-ybubnov/libhuffman (the C99 reference): per-block byte histograms,
-frequency-sorted tree construction with the reference's exact tie-breaking,
-preorder tree headers, and MSB-first bitstreams — bit-for-bit compatible with
+A from-scratch JAX re-design of the capabilities of ybubnov/libhuffman (the
+C99 reference): per-block byte histograms, frequency-sorted tree
+construction with the reference's exact tie-breaking, preorder tree headers,
+and MSB-first bitstreams — bit-for-bit compatible with
 ``huf_encode``/``huf_decode`` — plus a ``huffmanfile``-compatible Python API.
 
-Encode runs as batched device kernels (vmapped histogram -> fixed-trip
-two-argmin tree build -> one-hot code extraction -> merge-tree bit packing);
-decode resolves every bit position with a cascade of hardware lane-permute
-table lookups and recovers the codeword chain with a linear boolean
-recurrence, both Pallas kernels (see ops/decode_v3.py).  Blocks are fully
-independent (the format's latent parallelism axis) and shard data-parallel
-over a ``jax.sharding.Mesh``.
+Encode runs as one XLA program per block batch (scatter-add histogram ->
+fixed-trip two-argmin tree build -> code extraction -> scatter-add bit
+packing, ops/device.py); decode is a Pallas kernel compiled through Triton
+in which each lane walks one block's codewords (ops/decode_walk.py).  Blocks
+are fully independent (the format's latent parallelism axis) and shard
+data-parallel over a ``jax.sharding.Mesh``.
 """
 
 from .errors import (

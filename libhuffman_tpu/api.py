@@ -4,7 +4,7 @@ Drop-in surface of the reference Python binding (huffmanfile/huffmanfile.py):
 ``HuffmanError``, ``HuffmanFile``, ``HuffmanCompressor``,
 ``HuffmanDecompressor``, ``compress``, ``decompress``, ``open``, with the
 same defaults (DEFAULT_BLOCK_SIZE=131072, DEFAULT_MEM_LIMIT=262144,
-huffmanfile.py:26-27) — backed by the TPU codec instead of cffi'd C.
+huffmanfile.py:26-27) — backed by the JAX codec instead of cffi'd C.
 
 Deliberate fixes over the reference (SURVEY.md §7 item 8, each verified
 against the reference's observable behavior in tests/test_api.py):

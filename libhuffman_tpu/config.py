@@ -6,7 +6,7 @@ reader_buffer_size, writer_buffer_size, reader, writer) with zero-value
 semantics: blocksize == 0 treats the whole input as one block
 (src/encoder.c:163-165) and zero buffer sizes mean unbuffered I/O
 (src/bufio.c:58-68).  These dataclasses carry the same fields and defaults,
-plus the TPU-native knobs (device batching, an optional ``jax.sharding.Mesh``
+plus the device knobs (device batching, an optional ``jax.sharding.Mesh``
 for the block axis) that replace the reference's reader/writer stream
 pointers (SURVEY.md §5.6).
 
@@ -59,7 +59,7 @@ class DecodeConfig:
 
     length: compressed bytes to consume; 0 = the whole input.
     memlimit: working-buffer sizing hint (see module docstring).
-    use_device: route eligible blocks through the TPU kernels (host-exact
+    use_device: route eligible blocks through the device kernels (host-exact
         fallback handles the rest either way).
     mesh: optional ``jax.sharding.Mesh``: every device plan of the stream
         runs under shard_map over the block axis

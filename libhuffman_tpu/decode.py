@@ -8,8 +8,8 @@ a sequential chain.  This decoder breaks the chain speculatively:
      high bytes, tree_length in range — true block starts always match,
      false positives are rare and merely waste speculative work).
   2. All candidates are decoded in parallel on the device
-     (ops/decode_v3.py), each yielding its symbols, its consumed payload
-     size, and error flags.
+     (ops/decode_walk.py, one program per block), each yielding its symbols,
+     its consumed payload size, and error flags.
   3. The true chain is resolved on the host by following consumed sizes from
      offset 0; any gap (missed candidate, flagged block, adversarial stream)
      falls back to the host-exact sequential decoder for that block, so
@@ -34,26 +34,34 @@ from .format import (
 )
 from . import native
 from .ops import hostref
-from .ops import decode_v3 as ddec
+from .ops import decode_walk as ddec
 from .utils.trace import annotate
 
-# Device batch sizing: total bit positions per plan (~32 MiB payload);
-# HBM peak per plan ~1.5 GB of intermediates, freed before the next plan
-# runs inside the fused dispatch.  (B=1024 plans measured no faster: the
-# chain kernel is load-bound, not lane-bound — bench/probe_r5_decode.py.)
+# Device batch sizing: total bit positions per plan (32 MiB of staged
+# payload).  Each block of a plan is one program of the walker, and the
+# plans of a stream run one after another.
 _POSITION_BUDGET = 1 << 28
 
-# Distinct device-kernel shapes dispatched so far:
-# (B, NP, OUTW, NS, ECW, NARROW).  The bucket scheme bounds the product —
-# B is lane-granular, OUTW pow2, NP 8 steps/octave in [4096, 2^21·8], NS
+# Distinct device-kernel shapes dispatched so far: (B, NP, OUTW, NS).  The
+# bucket scheme bounds the product — B bucketed, NP and OUTW pow2, NS
 # one of six values — and the bench reports len(compile_keys()) so
 # jit-cache pressure is measured, not guessed.
 _COMPILE_KEYS: set[tuple] = set()
+
+# Blocks decoded in this process, by path: "device" (the walker) and
+# "host" (the host-exact walk: no native library, trees the table builder
+# rejects, oversized or missed blocks, speculation gone short).
+_BLOCK_COUNTS = {"device": 0, "host": 0}
 
 
 def compile_keys() -> frozenset:
     """Distinct decode-kernel jit keys dispatched in this process."""
     return frozenset(_COMPILE_KEYS)
+
+
+def block_counts() -> dict[str, int]:
+    """Blocks decoded in this process, by path ("device", "host")."""
+    return dict(_BLOCK_COUNTS)
 
 
 def _bucket(n: int, lo: int) -> int:
@@ -63,67 +71,19 @@ def _bucket(n: int, lo: int) -> int:
     return b
 
 
-import functools
-
-
-@functools.lru_cache(maxsize=1 << 14)
 def _p_bucket(n: int) -> int:
-    """Payload-byte budget bucket for a device plan (memoized: the plan
-    sorter calls it twice per candidate at stream scale).
-
-    Pow2 buckets waste ~24% of every kernel pass on dead positions for the
-    typical 0.76-ratio corpus (a 50 KB payload padded to 64 KB).  Eight
-    buckets per octave cut that to ~6%, constrained to the kernel
-    alignments: P % 4096 == 0 above 4096 (whole word-rows per chain
-    stripe), and above 64 KiB only multiples of 8192 up to 128 KiB (the
-    resolve tile halves to RW = WR // 2, still a multiple of 8 rows) then
-    multiples of 64 KiB (RW = 128 exactly)."""
-    if n <= 4096:
-        return _bucket(n, 512)
-    step = max(4096, 1 << (max(n - 1, 1).bit_length() - 3))
-    p = -(-n // step) * step
-    if p > 131072:
-        p = -(-p // 65536) * 65536
-    elif p > 65536:
-        p = -(-p // 8192) * 8192
-    return p
+    """Payload-byte budget of a device plan: a power of two >= 512.  The
+    walker's work follows the codewords, not the padded row, so coarse
+    buckets cost only staging bytes and give fewer, wider plans."""
+    return _bucket(n, 512)
 
 
 def _b_bucket(n: int) -> int:
-    """Block-count bucket: pow2 to 128, then lane-granular multiples of 128
-    (padding lanes pay the full resolve cascade, so a pow2-padded tail plan
-    wasted up to half its device work)."""
+    """Block-count bucket: pow2 to 128, then multiples of 128 (padding
+    blocks have n_sym = 0 and do no work)."""
     if n <= 128:
         return _bucket(n, 16)
     return -(-n // 128) * 128
-
-
-# Padding-lane resolve table: every entry terminal-and-bad, so padding
-# lanes resolve len 0 everywhere, their chains stall, and no real work
-# happens; the driver never reads padding-lane results.
-_PAD_TABLE = None
-
-
-def _narrow_flags(tables: np.ndarray) -> np.ndarray:
-    """Per-block narrow-stage-1 eligibility: every non-terminal LUT10
-    entry (a live state id at cut 10) is <= 31, so the whole stage-1
-    table fits the first 256 entries = packed row 4 and the resolve
-    kernel does ONE chunk permute instead of four (98% of enwik-like
-    blocks; measured round 5)."""
-    cells = tables[:, :4, :].reshape(len(tables), -1)
-    ents = np.concatenate([cells & 0xFFFF, cells >> 16], axis=1)
-    sid = np.where((ents & 0x8000) == 0, ents, 0)
-    return sid.max(axis=1) <= 31 if len(tables) else np.zeros(0, bool)
-
-
-def _pad_table() -> np.ndarray:
-    global _PAD_TABLE
-    if _PAD_TABLE is None:
-        # Two packed 16-bit DONE (len 0 = dead) entries per u32 cell.
-        e = 1 << 15
-        _PAD_TABLE = np.full((native.TAB_ROWS, 128), e | (e << 16),
-                             np.uint32)
-    return _PAD_TABLE
 
 
 class _Candidate:
@@ -149,7 +109,8 @@ def _decode_candidates_device(data: np.ndarray, cands: list[_Candidate],
 
     The device path needs the native table builder (native
     build_decode_tables); without a toolchain every candidate takes the
-    host-exact walk instead — slower, never incorrect.
+    host-exact walk instead — slower, never incorrect (block_counts()
+    shows it).
     """
     pending = []
     for c in cands:
@@ -170,15 +131,27 @@ def _decode_candidates_device(data: np.ndarray, cands: list[_Candidate],
             c.fallback = True
         return
 
+    plans = _build_plans(data, _eligible(pending, cands),
+                         lane_mult=mesh.devices.size if mesh else 1)
+    if not plans:
+        return
+    with annotate("huff.decode.device"):
+        results = _run_plans(plans, mesh)
+    for plan, (out, end_bit, corrupt, bad_bit) in zip(plans, results):
+        _apply_plan_results(plan, np.asarray(out), np.asarray(end_bit),
+                            np.asarray(corrupt), np.asarray(bad_bit))
+
+
+def _eligible(pending: list[_Candidate], cands: list[_Candidate]):
+    """(candidate, tables, cap, NS) for every pending candidate the device
+    path takes; marks the others for the host walk or an error."""
     bufs = np.concatenate([np.asarray(c.tree, np.int16) for c in pending])
     lens = np.array([len(c.tree) for c in pending], np.int32)
     offs = np.concatenate(([0], np.cumsum(lens[:-1], dtype=np.int64)))
-    tables_all, nstages_all, mindep_all, maxdep_all = (
+    tables_all, nstages_all, _mindep, maxdep_all = (
         native.build_decode_tables(bufs, offs, lens)
     )
-
     next_off = _next_candidate_offsets(cands)
-    narrow_all = _narrow_flags(tables_all)
     eligible = []
     for i, c in enumerate(pending):
         ns = int(nstages_all[i])
@@ -194,28 +167,16 @@ def _decode_candidates_device(data: np.ndarray, cands: list[_Candidate],
             continue
         cap = _payload_cap(c, int(maxdep_all[i]), next_off.get(c.off))
         if cap > (1 << 18):
-            # Oversized single blocks can't amortize the 128-lane batch
-            # minimum of the chain kernel: host/native path.
+            # The device path's documented limit: payloads above 256 KiB
+            # take the host walk.
             c.fallback = True
             continue
-        eligible.append((c, tables_all[i], cap, ns, bool(narrow_all[i])))
-
-    plans = _build_plans(data, eligible,
-                         lane_mult=mesh.devices.size if mesh else 1)
-    if not plans:
-        return
-    with annotate("huff.decode.device"):
-        results = _run_plans(plans, mesh)
-    for plan, (out, end_bit, corrupt, bad_bit, eovf) in zip(plans, results):
-        _apply_plan_results(
-            plan, np.asarray(out), np.asarray(end_bit), np.asarray(corrupt),
-            np.asarray(bad_bit), np.asarray(eovf),
-        )
+        eligible.append((c, tables_all[i], cap, ns))
+    return eligible
 
 
 class _Plan:
-    __slots__ = ("words", "tables", "n_sym", "caps", "NP", "OUTW", "ns",
-                 "ecw", "narrow", "batch")
+    __slots__ = ("words", "tables", "n_sym", "NP", "OUTW", "ns", "batch")
 
     def __init__(self, **kw):
         for k, v in kw.items():
@@ -245,7 +206,10 @@ def _payload_cap(c: _Candidate, depth: int, next_off: int | None) -> int:
     if next_off is not None:
         gap = next_off - c.payload_off
         if gap > 0:
-            cap = min(cap, gap)
+            # + 8: a payload whose last byte is zero makes the offset one
+            # byte before the next true header parse as a header too; the
+            # slack keeps that alias from cutting the true payload short.
+            cap = min(cap, gap + 8)
     return cap
 
 
@@ -253,152 +217,72 @@ def _build_plans(data: np.ndarray, eligible, lane_mult: int = 1
                  ) -> list[_Plan]:
     """Shape-homogeneous device batches from eligible candidates.
 
-    Sorted by (P bucket, stage count, narrowness, cap): the chain kernel
-    pads every plan to 128 block-lanes, so small same-P batches MUST
-    merge across NS buckets even though a plan's NS is the max over its
-    batch (mixed-density corpora produced seven 16-block plans whose
-    chain lanes ran 87% dead — that tripled the silesia chain wall,
-    round 5); within a bucket, same-NS and narrow blocks still group
-    first so pure runs keep the cheap cascades."""
-    eligible = sorted(
-        eligible,
-        key=lambda e: (_p_bucket(e[2] + 8), e[3], not e[4], e[2]))
+    A plan takes only candidates of one P bucket: every staged payload must
+    fit its plan's P bytes — a cap > P would silently truncate the payload
+    and let the walk run into zero padding (accepted as a bogus "complete"
+    decode).  Within a bucket, blocks sort by stage count so a plan's NS
+    (the largest of its blocks') stays low where it can."""
+    eligible = sorted(eligible, key=lambda e: (_p_bucket(e[2] + 8), e[3], e[2]))
     batches = []
     i = 0
     while i < len(eligible):
-        # A batch takes only candidates of the same P bucket: every staged
-        # payload must fit its plan's P words — a cap > P would silently
-        # truncate the payload and let the chain run into zero padding
-        # (accepted as a bogus "complete" decode).  P >= 512 keeps the
-        # resolve kernel's word rows whole.
         P = _p_bucket(eligible[i][2] + 8)
-        NP = 8 * P
-        Bmax = max(1, _POSITION_BUDGET // NP)
         j = i
         while j < len(eligible) and _p_bucket(eligible[j][2] + 8) == P:
             j += 1
-        # Within the P bucket: whole 128-lane tiles of each pure
-        # (NS, narrow) sub-run become their own near-equal chunks (pure
-        # plans keep the cheap cascades — 98% of enwik blocks are narrow
-        # and must not share a plan with the 2% that are not), and the
-        # sub-tile leftovers of every sub-run pool into ONE mixed residue
-        # chunk (NS = max, narrow = AND) so no plan runs mostly-dead
-        # chain lanes (the chain pads every plan to 128 lanes).
-        Bcap = max(128, (Bmax // 128) * 128) if Bmax > 128 else Bmax
-        residue = []
-        k = i
-        while k < j:
-            m = k
-            key = (eligible[k][3], eligible[k][4])
-            while m < j and (eligible[m][3], eligible[m][4]) == key:
-                m += 1
-            seg = eligible[k:m]
-            pure = (len(seg) // 128) * 128
-            if pure:
-                nchunks = -(-pure // Bcap)
-                csz0 = -(-pure // nchunks)  # near-equal ceil
-                csize = min(-(-csz0 // 128) * 128, Bcap)
-                for s0 in range(0, pure, csize):
-                    batches.append((P, seg[s0 : min(s0 + csize, pure)]))
-            residue.extend(seg[pure:])
-            k = m
-        for s0 in range(0, len(residue), Bcap):
-            batches.append((P, residue[s0 : s0 + Bcap]))
+        # Near-equal chunks of at most bmax blocks.
+        bmax = max(1, _POSITION_BUDGET // (8 * P))
+        size = -(-(j - i) // -(-(j - i) // bmax))
+        for s0 in range(i, j, size):
+            batches.append((P, eligible[s0 : min(s0 + size, j)]))
         i = j
 
-    plans = []
-    staged = []
-    for P, batch in batches:
-        NP = 8 * P
-        assert all(cap <= P for (_c, _t, cap, _n, _nw) in batch)
+    def plan(P, batch):
+        assert all(cap <= P for (_c, _t, cap, _n) in batch)
         B = _b_bucket(len(batch))
         if lane_mult > 1:
             B = -(-B // lane_mult) * lane_mult
-        W = P // 4  # u32 payload words
-        tables = np.tile(_pad_table(), (B, 1, 1))
-        n_sym = np.ones(B, np.int32)
-        max_sym = 1
-        ns = 0
-        narrow = True
+        tables = np.zeros((B, native.TAB_ROWS, 128), np.uint32)
+        n_sym = np.zeros(B, np.int32)  # 0: padding block, no work
         offs = np.full(B, -1, np.int64)
         caps = np.zeros(B, np.int64)
-        for b, (c, tab, cap, cns, cnw) in enumerate(batch):
+        for b, (c, tab, cap, _ns) in enumerate(batch):
             offs[b] = c.payload_off
-            caps[b] = min(cap, P)
+            caps[b] = cap
             tables[b] = tab
             n_sym[b] = c.n_sym
-            max_sym = max(max_sym, c.n_sym)
-            ns = max(ns, cns)
-            narrow = narrow and cnw
-        # Emission-capacity clamp (words per 64 groups) from the batch's
-        # densest block: 64 groups hold 64 payload bytes, so a block's
-        # mean content is 16*n_sym/cap words per 64 groups; x1.5 margin
-        # covers local variance (bitrev pairing concentrates merges
-        # toward the mean), and the emit_ovf flag -> host re-decode
-        # covers the rest.  None (exact) above 48.
-        dens = 0
-        for (c, _t, cp, _n, _nw) in batch:
-            cp = max(int(cp), 1)
-            dens = max(dens, (24 * c.n_sym + cp - 1) // cp)
-        ecw = -(-max(dens, 16) // 8) * 8  # bucket to multiples of 8
-        if ecw > 48:
-            ecw = None  # exact capacities
-        if native.available():
-            # One native pass per plan: slice, zero-pad, and byteswap per
-            # block (native stage_plan) straight into the kernel's word
-            # layout — deferred and run threaded across plans below (the
-            # ctypes call releases the GIL).
-            staged.append((len(plans), offs, caps, W))
-            words = None
-        else:
-            wbytes = np.zeros((B, 4 * (W + 128)), np.uint8)
-            for b, (c, tab, cap, cns, _nw) in enumerate(batch):
-                seg = data[c.payload_off : c.payload_off + min(cap, P)]
-                wbytes[b, : len(seg)] = seg
-            # Big-endian u32 words via a dtype view (single byteswap pass).
-            words = wbytes.view(">u4").astype(np.uint32).reshape(
-                B, (W + 128) // 128, 128)
-        OUTW = _bucket(max_sym, 512) // 4
-        plans.append(_Plan(words=words, tables=tables, n_sym=n_sym,
-                           caps=caps.astype(np.int32), NP=NP, OUTW=OUTW,
-                           ns=ns, ecw=ecw, narrow=narrow and ns >= 1,
-                           batch=batch))
-    if staged:
-        from concurrent.futures import ThreadPoolExecutor
+        # One native pass per plan: slice, zero-pad and byteswap each block
+        # into the walker's word rows (P // 4 words + one read-ahead word).
+        words = native.stage_plan(data, offs, caps, P // 4 + 1)
+        return _Plan(words=words, tables=tables, n_sym=n_sym, NP=8 * P,
+                     OUTW=_bucket(int(n_sym.max()), 512) // 4,
+                     ns=max(e[3] for e in batch), batch=batch)
 
-        def _stage(args):
-            idx, offs, caps, W = args
-            B = len(offs)
-            plans[idx].words = native.stage_plan(
-                data, offs, caps, W + 128).reshape(
-                    B, (W + 128) // 128, 128)
+    # The ctypes calls release the GIL, so plans stage in parallel.
+    from concurrent.futures import ThreadPoolExecutor
 
-        with ThreadPoolExecutor(native._POOL_WORKERS) as ex:
-            list(ex.map(_stage, staged))
-    return plans
+    with ThreadPoolExecutor(native._POOL_WORKERS) as ex:
+        return list(ex.map(lambda pb: plan(*pb), batches))
 
 
 def _run_plans(plans: list[_Plan], mesh=None):
-    """All plans in ONE device dispatch (dispatch latency is a flat
-    ~23.5 ms on this platform and does not pipeline; PERF.md §1).
+    """All plans in one device dispatch.
 
     With a mesh, the same plans run through shard_map over the block axis
     (parallel/shard.decode_plans_sharded) — the DecodeConfig.mesh path."""
     import jax.numpy as jnp
 
     for p in plans:
-        _COMPILE_KEYS.add((p.words.shape[0], p.NP, p.OUTW, p.ns, p.ecw,
-                           p.narrow))
+        _COMPILE_KEYS.add((p.words.shape[0], p.NP, p.OUTW, p.ns))
     if mesh is not None:
         from .parallel.shard import decode_plans_sharded
 
         return decode_plans_sharded(plans, mesh)
     arrays = tuple(
-        (jnp.asarray(p.words), jnp.asarray(p.tables),
-         jnp.asarray(p.n_sym), jnp.asarray(p.caps))
+        (jnp.asarray(p.words), jnp.asarray(p.tables), jnp.asarray(p.n_sym))
         for p in plans
     )
-    shapes = tuple((p.NP, p.OUTW, p.ns, p.ecw, p.narrow) for p in plans)
+    shapes = tuple((p.NP, p.OUTW, p.ns) for p in plans)
     return ddec.decode_blocks_many(arrays, shapes)
 
 
@@ -455,35 +339,12 @@ def build_device_plans(enc: bytes):
              if c.n_sym and c.n_sym <= 8 * c.avail]
     if not cands:
         return [], 0
-    bufs = np.concatenate([np.asarray(c.tree, np.int16) for c in cands])
-    lens = np.array([len(c.tree) for c in cands], np.int32)
-    offs2 = np.concatenate(([0], np.cumsum(lens[:-1], dtype=np.int64)))
-    tables_all, nstages_all, _mindep, maxdep_all = (
-        native.build_decode_tables(bufs, offs2, lens)
-    )
-    next_off = _next_candidate_offsets(cands)
-    narrow_all = _narrow_flags(tables_all)
-    eligible = []
-    n_out = 0
-    for i, c in enumerate(cands):
-        ns = int(nstages_all[i])
-        if ns < 0:
-            continue
-        cap = _payload_cap(c, int(maxdep_all[i]), next_off.get(c.off))
-        if cap > (1 << 18):
-            continue
-        eligible.append((c, tables_all[i], cap, ns, bool(narrow_all[i])))
-        n_out += c.n_sym
-    return _build_plans(buf, eligible), n_out
+    eligible = _eligible(cands, cands)
+    return _build_plans(buf, eligible), sum(e[0].n_sym for e in eligible)
 
 
-def _apply_plan_results(plan, out_h, end_h, cor_h, bad_h, eovf_h=None):
-    for b, (c, _tab, cap, _ns, _nw) in enumerate(plan.batch):
-        if eovf_h is not None and eovf_h[b]:
-            # Emission capacity clamped this block out (denser than the
-            # plan's ECW estimate): host-exact re-decode.
-            c.fallback = True
-            continue
+def _apply_plan_results(plan, out_h, end_h, cor_h, bad_h):
+    for b, (c, _tab, cap, _ns) in enumerate(plan.batch):
         if cor_h[b]:
             # Read-then-step precedence (decoder.c:52-71): a failing bit
             # beyond the available payload is a short read, not corruption
@@ -539,6 +400,8 @@ def _chain(data: bytes, length: int, use_device: bool, mesh=None):
                 syms, consumed = c.result
                 out.append(syms)
                 off = c.payload_off + consumed
+                if c.n_sym:
+                    _BLOCK_COUNTS["device"] += 1
                 continue
             # Host-exact fallback (missed candidates, deep trees, explosions).
             hdr = parse_block_header(mv, off)
@@ -546,6 +409,8 @@ def _chain(data: bytes, length: int, use_device: bool, mesh=None):
                 # Each symbol consumes >= 1 bit: guaranteed short read.  Also
                 # guards output allocation against adversarial u64 lengths.
                 raise ReadWriteError("Failed to decode the data")
+            if hdr.n_sym:
+                _BLOCK_COUNTS["host"] += 1
             if native.available():
                 err, consumed_b, produced, _blocks, o = native.scan_stream(
                     buf[off:length], decode=True, out_cap=hdr.n_sym,

@@ -1,16 +1,13 @@
 """Whole-stream encode: host orchestration around the device kernels.
 
 The stream is split into independent fixed-size blocks (the reference's block
-loop, src/encoder.c:288-374), batched, and pushed through two jitted stages:
-
-  stage 1  histogram -> tree -> codes -> exact per-block payload bit counts
-           (a frequency/length dot product — no per-byte pass), after which
-           the host sizes the static word buffer;
-  stage 2  per-byte layout + branch-free word packing.
+loop, src/encoder.c:288-374), batched, and pushed through one jitted program
+per batch (ops/device.encode_blocks: histogram -> tree -> codes -> packed
+payload words).
 
 Host work is limited to tree-header serialization and ordered concatenation
-of (header, payload) per block.  Batch and word counts are bucketed to keep
-the jit cache small.  Blocks whose codes exceed the 32-bit device fast path
+of (header, payload) per block.  Batch sizes are bucketed to keep the jit
+cache small.  Blocks whose codes exceed the 32-bit device fast path
 (physically impossible below ~2 MB blocks; adversarial only) fall back to the
 host-exact codec, preserving bit-exactness unconditionally.
 """
@@ -25,15 +22,21 @@ from .ops import device as dev
 from .ops import hostref
 from .utils.trace import annotate
 
-# Blocks per device sub-batch.  64 KiB x 128 = 8.4 MiB: the round-5 sweep
-# (128/256/512/1024 fused to the same total) measured 128-block programs
-# ~15% faster per byte than 256 and ~30% faster than 1024 — XLA schedules
-# the smaller pipelines better.  Dispatch latency (a flat ~23.5 ms RTT
-# that does not pipeline, bench/probe_r4_dispatch.py) amortizes by fusing
-# up to FUSE_BATCHES sub-batches into one dispatch
-# (ops/device.encode_blocks_many): 48 x 8.4 MiB = one RTT per ~400 MB.
+# Blocks per device sub-batch, and sub-batches fused into one dispatch
+# (ops/device.encode_blocks_many).
 DEFAULT_BATCH_BLOCKS = 128
 FUSE_BATCHES = 48
+
+# Blocks encoded in this process, by path: "device", "host" (blocksize
+# above the device path's 2 MiB limit) and "reencode" (device-flagged
+# blocks — codes over 32 bits or payload over the word budget — encoded
+# again on the host).
+_BLOCK_COUNTS = {"device": 0, "host": 0, "reencode": 0}
+
+
+def block_counts() -> dict[str, int]:
+    """Blocks encoded in this process, by path."""
+    return dict(_BLOCK_COUNTS)
 
 
 def _bucket(n: int, lo: int) -> int:
@@ -55,38 +58,32 @@ def _bucket_blocks(nb: int) -> int:
     return -(-nb // 256) * 256
 
 
-def _pack_params(N: int) -> tuple[int, int]:
-    """(W, capw) word budget for blocksize N.  capw=24 words per 64-symbol
-    chunk covers every block whose mean code length <= 12 bits (text ~4.5,
-    incompressible exactly 8); rarer blocks take the host fallback."""
-    capw = 24
-    P = 1
-    while P < N:
-        P *= 2
-    return min(P, capw * max(P // 64, 1)), capw
+def _words_per_block(N: int) -> int:
+    """Payload word budget for blocksize N: 9 bits per byte.  A Huffman
+    code is no longer on average than the 8-bit fixed code, and the unary
+    root adds one bit to every codeword, so no block exceeds it."""
+    return -(-9 * N // 32)
 
 
 def _encode_batch(batch: np.ndarray, n_valid: np.ndarray) -> list[bytes]:
     """Encode a (B, N) uint8 batch; returns per-block wire bytes."""
     import jax.numpy as jnp
 
-    W, capw = _pack_params(batch.shape[1])
     with annotate("huff.encode.device"):
         res = dev.encode_blocks(jnp.asarray(batch), jnp.asarray(n_valid),
-                                W, capw)
+                                _words_per_block(batch.shape[1]))
     return _assemble_batch(batch, n_valid, res)
 
 
 def _assemble_batch(batch: np.ndarray, n_valid: np.ndarray,
                     res) -> list[bytes]:
     """Transfer + assemble one device batch's results into wire bytes."""
-    W, _capw = _pack_params(batch.shape[1])
+    W = _words_per_block(batch.shape[1])
     payload, total_bits, left, right, root, overflow = res
     total_bits_h = np.asarray(total_bits)
     overflow_h = np.asarray(overflow)
     # Transfer only a bucketed prefix of the padded payload buffer: rows are
-    # ragged and the device->host link is the bottleneck (the worst-case
-    # buffer is 4N bytes/row but typical payloads are ~0.6N).
+    # ragged and typical payloads are ~0.6N of the 1.125N budget.
     with annotate("huff.encode.d2h"):
         maxb = _bucket(max(1, (int(total_bits_h.max()) + 7) // 8), 1024)
         payload_h = np.asarray(payload[:, : min(maxb, 4 * W)])
@@ -98,6 +95,9 @@ def _assemble_batch(batch: np.ndarray, n_valid: np.ndarray,
     if native.available():
         trees, lens_t = native.serialize_trees(left_h, right_h, root_h)
 
+    live = n_valid > 0
+    _BLOCK_COUNTS["reencode"] += int(np.sum(overflow_h & live))
+    _BLOCK_COUNTS["device"] += int(np.sum(~overflow_h & live))
     if trees is not None and not overflow_h.any():
         # Whole-batch native assembly (reference emit order,
         # src/encoder.c:325-351): one pass instead of a per-block Python
@@ -158,13 +158,13 @@ def encode(
         blocksize = n
     if blocksize > (1 << 21):
         # Oversized single blocks (blocksize=0 on a large input, or an
-        # explicit multi-MB blocksize): the Pallas path keeps a whole
-        # block's canvases in VMEM, and codes can exceed the 32-bit device
-        # fast path beyond ~2 MB anyway (ops/device.MAX_CODE_BITS) — take
-        # the host-exact encoder, block by block.
+        # explicit multi-MB blocksize): codes can exceed the 32-bit device
+        # fast path beyond ~2 MB (ops/device.MAX_CODE_BITS) — take the
+        # host-exact encoder, block by block.
         out = []
         for off in range(0, n, blocksize):
             out.append(hostref.encode_block(buf[off : off + blocksize]))
+            _BLOCK_COUNTS["host"] += 1
         return b"".join(out)
     nblocks = -(-n // blocksize)
 
@@ -184,14 +184,13 @@ def encode(
 
     starts = list(range(0, nblocks, batch_blocks))
     chunks: list[bytes] = []
-    # Up to FUSE_BATCHES sub-batches per dispatch (one flat ~23.5 ms RTT
-    # each; tuple length is part of the jit key, so group sizes stay few).
+    # Up to FUSE_BATCHES sub-batches per dispatch (tuple length is part of
+    # the jit key, so group sizes stay few).
     for g in range(0, len(starts), FUSE_BATCHES):
         host_batches = [make_batch(s) for s in starts[g : g + FUSE_BATCHES]]
         if len(host_batches) == 1:
             chunks.extend(_encode_batch(*host_batches[0]))
             continue
-        W, capw = _pack_params(blocksize)
         # Same-shape sub-batches fuse; a ragged tail batch (different B
         # bucket) dispatches separately rather than forcing a new key.
         shapes = {b.shape for b, _ in host_batches}
@@ -200,7 +199,7 @@ def encode(
         with annotate("huff.encode.device"):
             results = dev.encode_blocks_many(
                 tuple((jnp.asarray(b), jnp.asarray(nv)) for b, nv in fused),
-                W, capw)
+                _words_per_block(blocksize))
         for (b, nv), res in zip(fused, results):
             chunks.extend(_assemble_batch(b, nv, res))
         for b, nv in rest:

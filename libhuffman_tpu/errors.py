@@ -1,4 +1,4 @@
-"""Error taxonomy of the TPU-native Huffman codec.
+"""Error taxonomy of the Huffman codec.
 
 Mirrors the reference's ``huf_error_t`` enum (reference: include/huffman/errors.h:6-27)
 and its string table (reference: src/errors.c:5-15) as a Python exception hierarchy.

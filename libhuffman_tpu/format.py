@@ -13,7 +13,7 @@ The u64 length is the reference's ``need_to_read`` written with ``sizeof(size_t)
 
 Trees are represented here in *array form*: parallel int32 vectors indexed by slot
 (0..255 = leaf slots keyed by symbol, 256.. = internal nodes in merge order), which is
-the layout the TPU kernels produce and consume.  This module converts between array
+the layout the device kernels produce and consume.  This module converts between array
 form and the preorder int16 wire form.
 """
 

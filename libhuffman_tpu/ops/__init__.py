@@ -1,2 +1,2 @@
-"""Compute kernels: host-exact reference semantics and their TPU (JAX/Pallas)
-counterparts."""
+"""Compute kernels: host-exact reference semantics and their device (JAX,
+XLA and Pallas-through-Triton) counterparts."""

@@ -4,7 +4,7 @@ This module is the *semantic anchor* of the framework: a from-scratch, readable
 re-derivation of the reference algorithm (verified against the compiled reference
 as an oracle in tests/).  It serves three roles:
 
-  1. ground truth for property-testing the TPU kernels,
+  1. ground truth for property-testing the device kernels,
   2. the fallback path for pathological blocks the fast device path rejects
      (code length > 32 bits — requires a block of ~Fib(34) ≈ 5.7 MB of
      adversarially distributed bytes, see SURVEY.md §7 item 5),
@@ -247,6 +247,17 @@ def decode_block_payload(
     symbols (decoder.c:69-71) and ReadWriteError when the stream ends early
     (bufio.c read-through short-read, decoder.c:52-56 path).
     """
+    syms, end_bit = decode_block_bits(tree_i16, payload, n_sym)
+    return syms, (end_bit + 7) // 8
+
+
+def decode_block_bits(
+    tree_i16: np.ndarray, payload: memoryview | np.ndarray, n_sym: int
+) -> tuple[np.ndarray, int]:
+    """:func:`decode_block_payload` with the exact end: returns
+    ``(symbols, end_bit)``, the bit offset after the last codeword.  The
+    BtreeCorruptedError it raises carries ``bad_bit``, the payload bit that
+    stepped into a missing child."""
     if n_sym == 0:
         return np.zeros(0, dtype=np.uint8), 0
     if n_sym > 8 * len(payload):
@@ -266,7 +277,7 @@ def decode_block_payload(
     next1, sym1 = t["next1"], t["sym1"]
     pos = 0
     nbuf = len(buf)
-    while restored < n_sym:
+    while True:
         if pos >= nbuf:
             raise ReadWriteError("Failed to decode the data")
         byte = int(buf[pos])
@@ -280,22 +291,23 @@ def decode_block_payload(
                 ]
                 restored += cnt
             state = int(next8[state, byte])
-        else:
-            # Final byte of the block (or a corrupt walk): bit-by-bit with
-            # early stop, mirroring decoder.c:58-91.
-            for b in range(8):
-                bit = (byte >> (7 - b)) & 1
-                ns = int(next1[state, bit])
-                if ns == -2:
-                    raise BtreeCorruptedError("Failed to decode the data")
-                sy = int(sym1[state, bit])
-                state = ns
-                if sy >= 0:
-                    out[restored] = sy
-                    restored += 1
-                    if restored >= n_sym:
-                        break
-    return out, pos
+            continue
+        # Final byte of the block (or a corrupt walk): bit-by-bit with
+        # early stop, mirroring decoder.c:58-91.
+        for b in range(8):
+            bit = (byte >> (7 - b)) & 1
+            ns = int(next1[state, bit])
+            if ns == -2:
+                err = BtreeCorruptedError("Failed to decode the data")
+                err.bad_bit = 8 * (pos - 1) + b
+                raise err
+            sy = int(sym1[state, bit])
+            state = ns
+            if sy >= 0:
+                out[restored] = sy
+                restored += 1
+                if restored >= n_sym:
+                    return out, 8 * (pos - 1) + b + 1
 
 
 def walk_progress(tree_i16: np.ndarray, payload, n_sym: int) -> int:

@@ -10,5 +10,4 @@ stream assembly.
 from .shard import (  # noqa: F401
     block_mesh,
     encode_sharded,
-    decode_blocks_sharded,
 )

@@ -2,11 +2,11 @@
 
 SURVEY.md §5.8's plan made concrete.  Two layers of parallelism compose:
 
-  * within a host/slice, the block axis shards over local devices through
-    ``jax.sharding.Mesh`` (parallel/shard.py) — collectives ride ICI;
+  * within a host, the block axis shards over local devices through
+    ``jax.sharding.Mesh`` (parallel/shard.py);
   * across hosts, block *ranges* split by process; the only cross-host
-    traffic is the all-gather of per-range compressed sizes (tiny, DCN) and
-    the final ordered byte gather (``multihost_utils.process_allgather``).
+    traffic is the all-gather of per-range compressed sizes (tiny) and the
+    final ordered byte gather (``multihost_utils.process_allgather``).
 
 Because every block is self-contained (own header, own tree, byte-aligned —
 src/encoder.c:288-374), a contiguous range of blocks encodes to a
@@ -21,10 +21,12 @@ Usage (one call per process, same arguments everywhere):
     plain = decode_stream_multihost(stream)             # same bytes on all
 
 Single-process calls degrade to the local pipeline, so the same code runs
-unchanged from a laptop to a pod.
+unchanged from a laptop to a cluster.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -37,11 +39,32 @@ from .. import encode as _encode_mod
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None, **kwargs) -> None:
-    """Bring up the JAX distributed runtime (no-op for a single process)."""
+    """Bring up the JAX distributed runtime (no-op for a single process).
+
+    On a GPU host, a process given no ``local_device_ids`` binds to local
+    GPU ``process_id % (GPUs on the host)``: unbound, every process would
+    reserve most of every card's memory."""
     if num_processes is None or num_processes <= 1:
         return
+    n_gpus = _local_gpu_count()
+    if n_gpus and "local_device_ids" not in kwargs:
+        kwargs["local_device_ids"] = [process_id % n_gpus]
     jax.distributed.initialize(coordinator_address, num_processes,
                                process_id, **kwargs)
+
+
+def _local_gpu_count() -> int:
+    """GPUs this host shows a process, counted without starting a JAX
+    backend (jax.distributed must initialize first)."""
+    if os.environ.get("JAX_PLATFORMS", "").strip() == "cpu":
+        return 0
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible is not None:
+        return len([d for d in visible.split(",") if d.strip()])
+    try:
+        return len(os.listdir("/proc/driver/nvidia/gpus"))
+    except OSError:
+        return 0
 
 
 # Cross-host traffic accounting (SURVEY.md §5.8: DCN bytes per process

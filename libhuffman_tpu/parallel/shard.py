@@ -5,11 +5,10 @@ Design (SURVEY.md §5.7-5.8):
   * 1-D mesh ``('blocks',)`` over all devices; a stream of n bytes becomes
     ceil(n / blocksize) independent blocks, padded to a multiple of the mesh
     size and laid out ``P('blocks', None)``.
-  * The whole encode pipeline (histogram -> tree -> codes -> pack) is
-    batched elementwise over the block axis, so XLA partitions it with zero
-    communication; the only collective is the all-reduce that sizes the
-    shared word buffer (max over per-block bit totals) and the final gather
-    of ragged (payload, size) pairs for ordered assembly.
+  * The whole encode pipeline (histogram -> tree -> codes -> pack) and the
+    decode walker run per block, so each device runs them under shard_map
+    on its own blocks with no communication; the only cross-device step is
+    the final gather of ragged (payload, size) pairs for ordered assembly.
   * Multi-host: each host feeds its local shard of blocks;
     per-block compressed sizes are all-gathered (tiny), an exclusive scan
     gives every block its byte offset in the final stream, and payloads are
@@ -24,12 +23,10 @@ import functools
 import numpy as np
 
 import jax
-import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..format import ASCII_COUNT
 from ..ops import device as dev
-from ..ops import decode_v3 as ddec
+from ..ops import decode_walk as ddec
 
 
 def block_mesh(devices=None) -> Mesh:
@@ -39,14 +36,20 @@ def block_mesh(devices=None) -> Mesh:
     return Mesh(np.asarray(devices), ("blocks",))
 
 
-# The fused single-dispatch encode program (ops/device.encode_blocks) is
-# also the per-shard step under sharded jit.
-_encode_step = dev.encode_blocks
+def _encode_shard_mapped(mesh: Mesh, W: int):
+    """shard_map-wrapped encode_blocks over the block axis: each device
+    encodes its own blocks, with no collectives."""
+    spec2 = P("blocks", None)
+    vspec = P("blocks")
+    return jax.shard_map(
+        lambda b, nv: dev.encode_blocks.__wrapped__(b, nv, W),
+        mesh=mesh, in_specs=(spec2, vspec),
+        out_specs=(spec2, vspec, spec2, spec2, vspec, vspec),
+        check_vma=False)
 
 
 def encode_sharded(batch: np.ndarray, n_valid: np.ndarray, mesh: Mesh,
-                   words_per_block: int | None = None,
-                   capw: int = 64):
+                   words_per_block: int | None = None):
     """Encode a (B, N) block batch sharded over ``mesh``.
 
     B must be a multiple of the mesh size (pad with n_valid == 0 blocks).
@@ -54,111 +57,75 @@ def encode_sharded(batch: np.ndarray, n_valid: np.ndarray, mesh: Mesh,
 
     ``words_per_block``: static word budget; defaults to the worst case
     (N words = 32 bits/byte) — callers with size knowledge pass less.
-    ``capw`` clamps the packer's merge-tree capacities exactly like the
-    local path (overflowing blocks are flagged and host re-encoded).
     """
     B, N = batch.shape
     assert B % mesh.devices.size == 0, (B, mesh.devices.size)
     W = words_per_block or N
-    spec = NamedSharding(mesh, P("blocks", None))
-    vspec = NamedSharding(mesh, P("blocks"))
-    blocks = jax.device_put(jnp.asarray(batch), spec)
-    nv = jax.device_put(jnp.asarray(n_valid), vspec)
-    out_shardings = (spec, vspec, spec, spec, vspec, vspec)
-    fn = jax.jit(
-        functools.partial(_encode_step.__wrapped__, W=W, capw=capw),
-        in_shardings=(spec, vspec),
-        out_shardings=out_shardings,
-        static_argnames=(),
-    )
-    res = fn(blocks, nv)
+    blocks = jax.device_put(batch, NamedSharding(mesh, P("blocks", None)))
+    nv = jax.device_put(n_valid, NamedSharding(mesh, P("blocks")))
+    res = jax.jit(_encode_shard_mapped(mesh, W))(blocks, nv)
     return tuple(np.asarray(r) for r in res)
 
 
-def _decode_shard_mapped(mesh: Mesh, NP: int, OUTW: int, NS: int, ECW,
-                         NARROW: bool = False):
+def _decode_shard_mapped(mesh: Mesh, NP: int, OUTW: int, NS: int):
     """shard_map-wrapped decode_blocks over the block axis — blocks are
     fully independent, so there are no collectives at all."""
+    spec2 = P("blocks", None)
     spec3 = P("blocks", None, None)
     vspec = P("blocks")
 
-    def per_shard(w, t, n, nc):
-        return ddec.decode_blocks.__wrapped__(w, t, n, nc, NP, OUTW, NS,
-                                              ECW, NARROW)
+    def per_shard(w, t, n):
+        return ddec.decode_blocks.__wrapped__(w, t, n, NP, OUTW, NS)
 
     return jax.shard_map(
         per_shard, mesh=mesh,
-        in_specs=(spec3, spec3, vspec, vspec),
-        out_specs=(P("blocks", None), vspec, vspec, vspec, vspec),
+        in_specs=(spec2, spec3, vspec),
+        out_specs=(spec2, vspec, vspec, vspec),
         check_vma=False,  # pallas_call out_shapes carry no replication info
     )
-
-
-def decode_blocks_sharded(words, tables, n_sym, n_cap, NP: int, OUTW: int,
-                          NS: int, mesh: Mesh):
-    """Sharded batch decode of one homogeneous block batch (v3 kernels)."""
-    dspec3 = NamedSharding(mesh, P("blocks", None, None))
-    dvspec = NamedSharding(mesh, P("blocks"))
-    fn = jax.jit(_decode_shard_mapped(mesh, NP, OUTW, NS, None))
-    res = fn(
-        jax.device_put(jnp.asarray(words), dspec3),
-        jax.device_put(jnp.asarray(tables), dspec3),
-        jax.device_put(jnp.asarray(n_sym), dvspec),
-        jax.device_put(jnp.asarray(n_cap), dvspec),
-    )
-    return tuple(np.asarray(r) for r in res)
 
 
 @functools.partial(jax.jit, static_argnums=(1, 2))
 def _decode_plans_sharded_step(arrays, shapes, mesh):
     return tuple(
-        _decode_shard_mapped(mesh, *shp)(w, t, n, nc)
-        for (w, t, n, nc), shp in zip(arrays, shapes)
+        _decode_shard_mapped(mesh, *shp)(w, t, n)
+        for (w, t, n), shp in zip(arrays, shapes)
     )
 
 
 def decode_plans_sharded(plans, mesh: Mesh):
-    """All device plans of a stream through shard_map, ONE dispatch.
+    """All device plans of a stream through shard_map, one dispatch.
 
-    The sharded twin of ops/decode_v3.decode_blocks_many for the public
+    The sharded twin of ops/decode_walk.decode_blocks_many for the public
     ``DecodeConfig(mesh=...)`` path (reference outer loop being
     parallelized: src/decoder.c:218-275).  Plan lane counts are padded to
     a mesh multiple by the driver (decode._build_plans lane_mult)."""
-    dspec3 = NamedSharding(mesh, P("blocks", None, None))
-    dvspec = NamedSharding(mesh, P("blocks"))
     arrays = tuple(
-        (jax.device_put(jnp.asarray(p.words), dspec3),
-         jax.device_put(jnp.asarray(p.tables), dspec3),
-         jax.device_put(jnp.asarray(p.n_sym), dvspec),
-         jax.device_put(jnp.asarray(p.caps), dvspec))
-        for p in plans
-    )
-    shapes = tuple((p.NP, p.OUTW, p.ns, p.ecw, p.narrow) for p in plans)
+        (jax.device_put(p.words, NamedSharding(mesh, P("blocks", None))),
+         jax.device_put(p.tables, NamedSharding(mesh, P("blocks", None, None))),
+         jax.device_put(p.n_sym, NamedSharding(mesh, P("blocks"))))
+        for p in plans)
+    shapes = tuple((p.NP, p.OUTW, p.ns) for p in plans)
     return _decode_plans_sharded_step(arrays, shapes, mesh)
 
 
 @functools.partial(jax.jit, static_argnums=(1, 2))
-def _encode_many_step(args, W: int, capw: int):
-    """Several sharded sub-batches in ONE dispatch (the sharded twin of
-    ops/device.encode_blocks_many; input shardings committed by the
-    caller's device_put propagate through GSPMD)."""
-    return tuple(_encode_step.__wrapped__(b, nv, W, capw) for b, nv in args)
+def _encode_many_step(args, W: int, mesh: Mesh):
+    """Several sharded sub-batches in one dispatch (the sharded twin of
+    ops/device.encode_blocks_many)."""
+    step = _encode_shard_mapped(mesh, W)
+    return tuple(step(b, nv) for b, nv in args)
 
 
 def encode_stream_sharded(buf: np.ndarray, blocksize: int, mesh: Mesh) -> bytes:
     """Whole-stream encode over a device mesh.
 
-    Runs the round-4 local pipeline shape under sharding: the stream splits
-    into sub-batches of 256 blocks PER DEVICE (the measured XLA scheduling
-    optimum for the fused kernels), every sub-batch uses the
-    ``_pack_params`` word budget + capw clamp instead of the worst-case
-    W = N, all sub-batches fuse into one dispatch, and the payload
-    transfer is bucketed to the longest real payload (the worst-case
-    buffer is 4N bytes/row but typical payloads are ~0.6N).  Clamp
-    overflows fall back to exact host re-encode per block, identical to
-    the local driver.
+    The stream splits into sub-batches of 256 blocks per device; every
+    sub-batch uses the local driver's word budget, all of them fuse into
+    one dispatch, and assembly (host re-encode of flagged blocks included)
+    is the local driver's.
     """
-    from ..encode import _assemble_batch, _pack_params
+    from ..encode import _assemble_batch, _words_per_block
 
     n = len(buf)
     if n == 0:
@@ -173,7 +140,7 @@ def encode_stream_sharded(buf: np.ndarray, blocksize: int, mesh: Mesh) -> bytes:
                         for off in range(0, n, blocksize))
     nblocks = -(-n // blocksize)
     nd = mesh.devices.size
-    W, capw = _pack_params(blocksize)
+    W = _words_per_block(blocksize)
     group = 256 * nd
     spec = NamedSharding(mesh, P("blocks", None))
     vspec = NamedSharding(mesh, P("blocks"))
@@ -190,9 +157,9 @@ def encode_stream_sharded(buf: np.ndarray, blocksize: int, mesh: Mesh) -> bytes:
         if s + nb == nblocks and n % blocksize:
             n_valid[nb - 1] = n % blocksize
         host_batches.append((batch, n_valid))
-        staged.append((jax.device_put(jnp.asarray(batch), spec),
-                       jax.device_put(jnp.asarray(n_valid), vspec)))
-    results = _encode_many_step(tuple(staged), W, capw)
+        staged.append((jax.device_put(batch, spec),
+                       jax.device_put(n_valid, vspec)))
+    results = _encode_many_step(tuple(staged), W, mesh)
     chunks: list[bytes] = []
     for (batch, n_valid), res in zip(host_batches, results):
         chunks.extend(_assemble_batch(batch, n_valid, res))

@@ -3,7 +3,7 @@
 The reference keeps its codebook as a 256-slot array of heap elements
 ``{length, coding}`` with insert/get/overwrite/reset semantics
 (/root/reference/src/symbol.c:10-222, include/huffman/symbol.h:10-79).  The
-TPU build's real codebook is a pair of dense device arrays — codes (B, 256)
+device build's real codebook is a pair of dense device arrays — codes (B, 256)
 u32 + lengths (B, 256) u8 (ops/device.extract_codes) — because per-symbol
 heap cells have no device analogue.  This module is the host-side
 introspection/parity face of that codebook: the same observable container

@@ -2,7 +2,7 @@
 
 The reference has no observability at all (no timers, counters, or trace
 hooks anywhere; its only stdio include, sys.h:5, is unused for logging).
-The TPU-native equivalents here are:
+The equivalents here are:
 
   * ``annotate(name)``   — a ``jax.profiler.TraceAnnotation`` around a host
                            phase so encode/decode stages show up as named

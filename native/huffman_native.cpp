@@ -1,6 +1,6 @@
 // Native host runtime for libhuffman_tpu.
 //
-// The TPU kernels own the compute path; this library owns the host-side
+// The device kernels own the compute path; this library owns the host-side
 // per-block work that Python is too slow for at stream scale:
 //
 //   * batch preorder tree serialization  (encode header generation)
@@ -226,24 +226,20 @@ int32_t scan_stream(const uint8_t* data, int64_t length,
 // Decode resolve tables: LUT10 + (128-state x 3-bit) stage + a 64-state
 // 3-bit tail, then 32-state 3-bit tails.
 //
-// The TPU resolve kernel (ops/decode_v3.py) determines, for every bit
-// position, the (length, symbol) of the codeword starting there, using only
-// 128-wide lookups (the hardware lane-permute width; wider tables compose
-// from 128-entry chunks).  Every logical entry fits 16 bits, so TWO entries
-// pack per u32 lane cell — halving both the permute count per lookup in the
-// kernel (4 chunk permutes for a 1024-entry table instead of 8) and the
-// table VMEM footprint.  Packed layout per block, TAB_ROWS = 13 rows of
-// 128 u32 (entry i of a table lives in cell i>>1, half i&1,
-// little-halfword first):
+// The device decode walker (ops/decode_walk.py) resolves the codeword at
+// a lane's bit position with a cascade of lookups into these tables.
+// Every logical entry fits 16 bits, so TWO entries pack per u32 cell.
+// Packed layout per block, TAB_ROWS = 13 rows of 128 u32 (entry i of a
+// table lives in cell i>>1, half i&1, little-halfword first):
 //
 //   rows 0..3   LUT10:   index = first 10 window bits           (1024)
 //   rows 4..7   stage 1: index = state(7b) << 3 | bits [10,13)  (1024)
 //   rows 8..9   tail 1:  index = state(6b) << 3 | 3 bits        (512)
 //   rows 10..12 tails 2-4: index = state(5b) << 3 | 3 bits      (256 each,
 //               one row per stage) covering cuts 13, 16, 19, 22 -> max
-//               depth 25 (MAX_TABLE_DEPTH; decode_v3.MAXL_OF_NS)
+//               depth 25 (MAX_TABLE_DEPTH; decode_walk.MAXL_OF_NS)
 //
-// Cut capacities follow measured tree shapes (bench/probe_r3 analysis plus
+// Cut capacities follow measured tree shapes (tree-shape analysis plus
 // the round-4 widening): realistic 64 KiB text blocks (Zipf word mix with
 // a rare-byte tail) fit 128 states at depth 10 and 64 at depth 13;
 // uniform-byte blocks have depth <= 10 entirely.
@@ -291,12 +287,11 @@ static const int32_t TAB_ROWS = 13;   // packed: 4 (LUT10) + 4 (stage 1)
                                       // + 2 (tail 1: 64st) + 3 (tails 2-4)
 static const int32_t LOGI_ROWS = 26;  // logical: 8 + 8 + 4 + 3*2
 
-// Terminal entries are stored PRE-TRANSLATED in the chain composite
-// layout DONE(15) | aux(13:6) | len(5:0) — len == 0 marks a dead/corrupt
+// Terminal entries are stored in the walker's layout
+// DONE(15) | aux(13:6) | len(5:0) — len == 0 marks a dead/corrupt
 // position whose aux byte is the fail offset, else aux is the decoded
-// symbol.  The resolve kernel stores raw pairs with no per-position
-// translate step (round-5: ~6 VPU ops/position saved); non-terminal
-// entries keep holding next-stage state indices in the low bits.
+// symbol; non-terminal entries hold next-stage state indices in the low
+// bits.
 static inline int32_t term_entry(int32_t bad, int32_t lnfail, int32_t sym)
 {
     const int32_t DONE = 1 << 15;
@@ -309,10 +304,9 @@ static int32_t build_decode_tables_logical(const uint32_t* nodes, int32_t nt,
     const int32_t DONE = 1 << 15;
     // Unary-root requirement: every wire codeword starts with a 0 bit
     // (reference src/tree.c:410-413 always wraps the root), so the upper
-    // half of LUT10 is the constant dead entry and the kernel folds it to
-    // a compare (half the LUT10 permutes).  Crafted streams can serialize
-    // a tree with a real right child under the root; those take the
-    // host-exact walk (bit-exact either way).
+    // half of LUT10 is the constant dead entry.  Crafted streams can
+    // serialize a tree with a real right child under the root; those take
+    // the host-exact walk (bit-exact either way).
     if (((nodes[0] >> 11) & 0x7FF) != (uint32_t)(nt - 1)) return -1;
     // Unreachable slots decode as dead positions (len 0, fail offset 0).
     for (int32_t i = 0; i < LOGI_ROWS * 128; ++i) tables[i] = DONE;
@@ -617,7 +611,7 @@ int64_t find_headers(const uint8_t* d, int64_t n, int64_t* out, int64_t cap)
 
 // Decode plan staging: per block, copy `caps[b]` payload bytes from
 // `data + offs[b]` into a zero-padded row of big-endian u32 words (the
-// resolve kernel's input layout, ops/decode_v3.resolve_blocks).
+// decode walker's input layout, ops/decode_walk.decode_blocks).
 void stage_plan(const uint8_t* data, int64_t n,
                 const int64_t* offs, const int64_t* caps, int32_t B,
                 int64_t row_words,  // words per output row (incl. pad row)

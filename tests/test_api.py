@@ -12,7 +12,7 @@ import pytest
 
 import huffmanfile
 from libhuffman_tpu.streams import MemStream
-from oracle import ref_compress
+from oracle import reference_stream
 
 
 # ---- reference huffmanfile_test.py, one-for-one -------------------------
@@ -22,7 +22,7 @@ def test_compress_decompress():
     c = huffmanfile.compress(data)
     d = huffmanfile.decompress(c)
     assert d == data
-    assert c == ref_compress(data)  # and wire-identical to the reference
+    assert c == reference_stream(data, 131072)  # wire-identical to the reference
 
 
 def test_decompress_corrupted():
@@ -76,13 +76,13 @@ def test_incremental_compressor_wire_equivalence():
     for i in range(0, len(data), 700):
         out += comp.compress(data[i : i + 700])
     out += comp.flush()
-    assert out == ref_compress(data, 1024)
+    assert out == reference_stream(data, 1024)
     assert huffmanfile.decompress(out) == data
 
 
 def test_incremental_decompressor():
     data = b"The quick brown fox. " * 500
-    enc = ref_compress(data, 1024)
+    enc = reference_stream(data, 1024)
     dec = huffmanfile.HuffmanDecompressor()
     out = b""
     for i in range(0, len(enc), 333):  # arbitrary chunking incl. mid-header
@@ -97,7 +97,7 @@ def test_incremental_decompressor_drip_walk_is_linear(monkeypatch):
     # entry points and assert they never exceed the payload length.
     data = bytes(np.random.default_rng(7).integers(97, 123, 1 << 15,
                                                    dtype=np.uint8))
-    enc = ref_compress(data, 0)  # blocksize 0: one block (encoder.c:163-165)
+    enc = reference_stream(data, 0)  # blocksize 0: one block (encoder.c:163-165)
 
     from libhuffman_tpu import native
     from libhuffman_tpu.ops import hostref
@@ -140,7 +140,7 @@ def test_incremental_decompressor_big_drip_linear_buffer():
                                 dtype=np.uint8)) for _ in range(64)]
     data = b" ".join(words[int(i)] for i in
                      rng.integers(0, 64, 170_000))[: 1 << 20]
-    enc = ref_compress(data, 65536)
+    enc = reference_stream(data, 65536)
     dec = huffmanfile.HuffmanDecompressor()
     out = []
     step = 4096

@@ -1,32 +1,20 @@
-"""Corpus-scale oracle cross-check (>= 16 MB, enwik-like text + binary).
+"""Corpus-scale cross-check (>= 16 MB, enwik-like text + binary).
 
 The unit suite maxes out at a few hundred KB; this mirrors the
 BASELINE.json corpus intent (Silesia/enwik8-class inputs) with a
-deterministic Zipf-text corpus: our stream must byte-equal the compiled C
-reference and round-trip.  bench.py repeats the same check on every real
-TPU benchmark run.
-
-On the CPU backend the decode path runs the Pallas kernel in interpreter
-mode (hours at this scale), so the test runs when a TPU is present or when
-LIBHUFFMAN_CORPUS_TEST=1 forces it; CI covers the logic at smaller sizes.
+deterministic Zipf-text corpus: our stream must byte-equal the reference
+encoding (reference_stream) and round-trip.  The 16 MB cases are ``gpu``
+tests; the CPU suite covers the same logic at smaller sizes.
 """
-
-import os
 
 import numpy as np
 import pytest
 
-import jax
-
 from libhuffman_tpu import decode as dec_mod
 from libhuffman_tpu import encode as enc_mod
-from oracle import ref_compress
+from oracle import reference_stream
 
-_RUN = (jax.default_backend() != "cpu"
-        or os.environ.get("LIBHUFFMAN_CORPUS_TEST") == "1")
-# CI shrinks the corpus-scale sweep to CPU-tractable sizes (the TPU bench
-# covers the full size); default stays 16 MB.
-_MB = int(os.environ.get("LIBHUFFMAN_CORPUS_MB", "16"))
+_MB = 16
 
 
 def _corpus(n_bytes: int) -> bytes:
@@ -43,12 +31,11 @@ def _corpus(n_bytes: int) -> bytes:
     return out[:n_bytes]
 
 
-@pytest.mark.skipif(not _RUN, reason="CPU interpret mode is impractical at "
-                    "16 MB; runs on TPU and under LIBHUFFMAN_CORPUS_TEST=1")
+@pytest.mark.gpu
 def test_16mb_text_oracle_exact_roundtrip():
     data = _corpus(_MB << 20)
     ours = enc_mod.encode(data, 65536)
-    assert ours == ref_compress(data, 65536)
+    assert ours == reference_stream(data, 65536)
     assert dec_mod.decode(ours) == data
 
 
@@ -67,39 +54,39 @@ def _families():
 
 @pytest.mark.parametrize("fam", ["xray", "samba", "mixed"])
 def test_family_small_oracle_exact(fam):
-    # CPU-scale slice of every corpus family (the full-size sweep runs on
-    # TPU / LIBHUFFMAN_CORPUS_TEST); pins wire-exactness on the
-    # near-incompressible, zero-heavy, and composite regimes.
+    # CPU-scale slice of every corpus family (the full-size sweep is a
+    # gpu test); pins wire-exactness on the near-incompressible,
+    # zero-heavy, and composite regimes.
     data = _families()[fam](256 << 10)
     ours = enc_mod.encode(data, 65536)
-    assert ours == ref_compress(data, 65536)
+    assert ours == reference_stream(data, 65536)
     assert dec_mod.decode(ours) == data
 
 
 def test_oversized_single_block_oracle_exact():
-    # blocksize=0 on a multi-MB input: one block far beyond the device
-    # fast path (codes can exceed 32 bits; VMEM canvases can't hold it) —
-    # must route to the host-exact encoder and stay wire-exact.
+    # blocksize=0 on a multi-MB input: one block beyond the device path's
+    # 2 MiB limit (codes can exceed 32 bits) — must route to the
+    # host-exact encoder and stay wire-exact.
     data = _families()["mixed"](3 << 20)
     ours = enc_mod.encode(data, 0)
-    assert ours == ref_compress(data, len(data))
+    assert ours == reference_stream(data, len(data))
     assert dec_mod.decode(ours) == data
 
 
-@pytest.mark.skipif(not _RUN, reason="see above")
+@pytest.mark.gpu
 def test_mixed_family_corpus_scale():
     data = _families()["mixed"](_MB << 20)
     ours = enc_mod.encode(data, 65536)
-    assert ours == ref_compress(data, 65536)
+    assert ours == reference_stream(data, 65536)
     assert dec_mod.decode(ours) == data
 
 
-@pytest.mark.skipif(not _RUN, reason="see above")
+@pytest.mark.gpu
 def test_16mb_mixed_blocksizes_oracle_exact():
     half = (_MB << 20) // 2
     data = _corpus(half) + np.random.default_rng(7).integers(
         0, 256, half, np.uint8).tobytes()
     for bs in (4096, 131072):
         ours = enc_mod.encode(data, bs)
-        assert ours == ref_compress(data, bs)
+        assert ours == reference_stream(data, bs)
     assert dec_mod.decode(enc_mod.encode(data, 131072)) == data

@@ -1,11 +1,11 @@
-"""Device (jitted, CPU-backend in tests) encode vs host-exact codec and oracle."""
+"""Device (jitted, CPU-backend in tests) encode vs the host-exact codec."""
 
 import numpy as np
 import pytest
 
 from libhuffman_tpu import encode as enc_mod
 from libhuffman_tpu.ops import hostref
-from oracle import ref_compress
+from oracle import reference_stream
 
 
 def _check(data: bytes, blocksize: int):
@@ -40,6 +40,8 @@ def test_multiblock_batching():
 
 @pytest.mark.parametrize("seed", range(6))
 def test_random_vs_oracle(seed):
+    """Random inputs of three histogram shapes against the reference
+    encoding (hostref, and the C reference when present)."""
     rng = np.random.default_rng(100 + seed)
     n = int(rng.integers(1, 20000))
     kinds = [
@@ -54,7 +56,7 @@ def test_random_vs_oracle(seed):
     data = kinds[seed % 3]().tobytes()
     bs = int(rng.choice([0, 100, 1024, 65536]))
     got = enc_mod.encode(data, bs)
-    assert got == ref_compress(data, bs if bs else len(data))
+    assert got == reference_stream(data, bs if bs else len(data))
     assert hostref.decode(got) == data
 
 
@@ -94,9 +96,8 @@ def test_overflow_flag_on_crafted_histogram():
 
 
 def test_non_pow2_1024_multiple_blocksizes():
-    """Blocksizes that are multiples of 1024 but NOT powers of two (3072,
-    5120) must route around the pow2-only merge-tree packer instead of
-    tripping its assert inside jit (round-5 regression fix)."""
+    """Blocksizes that are multiples of 1024 but not powers of two (3072,
+    5120) stay wire-exact through encode and decode."""
     from libhuffman_tpu import decode as dec_mod
     from libhuffman_tpu import encode as enc_mod
     from libhuffman_tpu.ops import hostref
@@ -106,3 +107,81 @@ def test_non_pow2_1024_multiple_blocksizes():
         enc = enc_mod.encode(data, bs)
         assert enc == hostref.encode(data, bs), bs
         assert dec_mod.decode(enc) == data, bs
+
+
+def test_histogram_matches_bincount():
+    """The scatter-add histogram against np.bincount, with ragged valid
+    lengths (zero padding must not count) and all-equal and all-distinct
+    blocks."""
+    import jax.numpy as jnp
+
+    from libhuffman_tpu.ops import device as dev
+
+    rng = np.random.default_rng(4)
+    B, N = 5, 3000
+    blocks = rng.integers(0, 256, (B, N), dtype=np.uint8)
+    blocks[1] = 7
+    blocks[2, :256] = np.arange(256)
+    n_valid = np.array([N, N, 256, 1, 0], np.int32)
+    for b in range(B):
+        blocks[b, n_valid[b]:] = 0
+    got = np.asarray(dev.histogram(jnp.asarray(blocks), jnp.asarray(n_valid)))
+    assert got.shape == (B, 512) and not got[:, 256:].any()
+    for b in range(B):
+        want = np.bincount(blocks[b, : n_valid[b]], minlength=256)
+        assert np.array_equal(got[b, :256], want), b
+
+
+@pytest.mark.parametrize("max_len", [8, 24, 32])
+def test_pack_words_matches_hostref(max_len):
+    """The scatter-add packer against hostref.pack_bits for a codebook of
+    1..max_len-bit codes: codes straddle word boundaries at every offset,
+    and with max_len 32 codes of 25-32 bits straddle two words."""
+    import jax.numpy as jnp
+
+    from libhuffman_tpu.ops import device as dev
+
+    rng = np.random.default_rng(max_len)
+    lengths = rng.integers(1, max_len + 1, 256).astype(np.int32)
+    lengths[:8] = np.arange(max_len - 7, max_len + 1)
+    codes = (rng.integers(0, 1 << 32, 256, dtype=np.uint64)
+             & ((np.uint64(1) << lengths.astype(np.uint64)) - np.uint64(1)))
+    B, N = 3, 2000
+    blocks = rng.integers(0, 256, (B, N), dtype=np.uint8)
+    n_valid = np.array([N, 1234, 1], np.int32)
+    C = codes[blocks].astype(np.uint32)
+    L = np.where(np.arange(N)[None, :] < n_valid[:, None], lengths[blocks], 0)
+    W = N  # 32 bits per position: room for any code
+    words = dev.pack_words(jnp.asarray(C), jnp.asarray(L), W)
+    got = np.asarray(dev.words_to_bytes(words))
+    for b in range(B):
+        want = hostref.pack_bits(blocks[b, : n_valid[b]], codes, lengths)
+        assert got[b, : len(want)].tobytes() == want, b
+        assert not got[b, len(want):].any(), b
+
+
+def test_pallas_route_by_platform():
+    """GPU compiles through Triton, CPU interprets, and any other platform
+    raises naming itself."""
+    from libhuffman_tpu.ops.backend import pallas_route
+
+    assert pallas_route(1, "gpu")["backend"] == "triton"
+    assert "compiler_params" in pallas_route(4, "gpu")
+    assert pallas_route(1, "cpu") == {"backend": "triton", "interpret": True}
+    with pytest.raises(NotImplementedError, match="'rocm'"):
+        pallas_route(1, "rocm")
+
+
+@pytest.mark.gpu
+def test_encode_decode_compiled_on_gpu():
+    """The compiled kernels (no interpret mode) at a real blocksize: wire
+    bytes equal hostref and every block stays on the device path."""
+    import corpora
+    from libhuffman_tpu import decode as dec_mod
+
+    data = corpora.text(4 << 20, seed=2)
+    before = dec_mod.block_counts()
+    enc = enc_mod.encode(data, 131072)
+    assert enc == hostref.encode(data, 131072)
+    assert dec_mod.decode(enc) == data
+    assert dec_mod.block_counts()["host"] == before["host"]

@@ -1,7 +1,7 @@
 """Property-based fuzzing (SURVEY.md §5.2).
 
 The reference's only "sanitizer" story is valgrind memcheck over its unit
-tests (reference: test/CMakeLists.txt:8-26).  The TPU framework has no C
+tests (reference: test/CMakeLists.txt:8-26).  The JAX framework has no C
 memory to check; the equivalent robustness surface is:
 
   * round-trip identity on arbitrary inputs and blocksizes,

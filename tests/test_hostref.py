@@ -1,7 +1,8 @@
 """Golden-vector and oracle cross-check tests for the host-exact codec.
 
 Golden byte strings were captured from the compiled reference (SURVEY.md §2.9)
-and are also re-derived live from the oracle in each run.
+and are also re-derived live from the oracle when its sources are present;
+the tests whose only subject is the compiled reference skip without them.
 """
 
 import numpy as np
@@ -15,6 +16,7 @@ from libhuffman_tpu.errors import (
     HuffmanError,
     ReadWriteError,
 )
+import oracle
 from oracle import ref_compress, ref_decompress
 
 GOLDEN_0123456789 = bytes.fromhex(
@@ -30,7 +32,8 @@ GOLDEN_1 = bytes.fromhex("0100000000000000" + "0500" + "00013100ffffffffffff" + 
 def test_golden_0123456789():
     out = hostref.encode(b"0123456789", 65536)
     assert out == GOLDEN_0123456789
-    assert out == ref_compress(b"0123456789", 65536)
+    if oracle.available():
+        assert out == ref_compress(b"0123456789", 65536)
 
 
 def test_golden_single_byte():
@@ -48,13 +51,15 @@ def test_golden_aab():
     hdr = fmt.parse_block_header(memoryview(out), 0)
     assert list(hdr.tree) == [257, 256, 98, -1, -1, 97, -1, -1, -1]
     assert out[hdr.payload_off:] == b"\x50"
-    assert out == ref_compress(b"aab", 65536)
+    if oracle.available():
+        assert out == ref_compress(b"aab", 65536)
 
 
 def test_multiblock_independent():
     # "aabba" at blocksize 2 -> three fully independent blocks (2+2+1 bytes).
     out = hostref.encode(b"aabba", 2)
-    assert out == ref_compress(b"aabba", 2)
+    if oracle.available():
+        assert out == ref_compress(b"aabba", 2)
     offs = [off for off, _, _ in hostref.scan_blocks(out)]
     assert len(offs) == 3
 
@@ -62,9 +67,10 @@ def test_multiblock_independent():
 def test_roundtrip_small():
     for data in [b"a" * 1000, b"0123456789", b"\x00\xff" * 37]:
         enc = hostref.encode(data, 131072)
-        assert enc == ref_compress(data)
         assert hostref.decode(enc) == data
-        assert ref_decompress(enc) == data
+        if oracle.available():
+            assert enc == ref_compress(data)
+            assert ref_decompress(enc) == data
 
 
 def test_all_256_symbols_block():
@@ -72,6 +78,7 @@ def test_all_256_symbols_block():
     # The reference encodes it (overflowing its own 1024-entry buffer) but
     # cannot decode its own output (BTREE_OVERFLOW); this framework encodes
     # bit-exactly and deliberately accepts the stream on decode.
+    oracle.require()
     data = bytes(range(256)) * 5
     enc = hostref.encode(data, 131072)
     assert enc == ref_compress(data)
@@ -84,6 +91,7 @@ def test_all_256_symbols_block():
 
 @pytest.mark.parametrize("seed", range(8))
 def test_random_roundtrip_vs_oracle(seed):
+    oracle.require()
     rng = np.random.default_rng(seed)
     n = int(rng.integers(1, 5000))
     # Mix of skewed and near-uniform histograms.
@@ -117,7 +125,8 @@ def test_adversarial_fibonacci_histogram():
         counts.append(counts[-1] + counts[-2])
     data = b"".join(bytes([i]) * c for i, c in enumerate(counts))
     enc = hostref.encode(data, 0)
-    assert enc == ref_compress(data, len(data))
+    if oracle.available():
+        assert enc == ref_compress(data, len(data))
     assert hostref.decode(enc) == data
 
 
